@@ -2,14 +2,14 @@
 // tsqEncode (compiled from /root/reference at build time, like the golden
 // harness — nothing vendored), same blocks, same process, rdtsc + wall.
 //
-// Build/run (see bench/encode_headtohead.sh):
+// Build/run:
 //   g++ -O3 -march=native -std=c++17 -I.ref_build/shim -I/root/reference \
 //     bench/encode_headtohead.cpp csrc/tsq_core.cpp \
 //     /root/reference/tsq_encode.cpp /root/reference/tsq_context.cpp \
 //     -o .ref_build/enc_h2h && .ref_build/enc_h2h corpus.bin [reps]
 //
-// Purpose: VERDICT r3 item 6 — the host MT encode trails the same-box
-// upstream ~9% three rounds running; this isolates the level-0 hot loop
+// Purpose: the host MT encode once trailed the same-box upstream by ~9%;
+// this isolates the level-0 hot loop
 // (tsq_encode.cpp:216-326 upstream vs csrc/tsq_core.cpp encode_impl)
 // from pipeline/runtime effects.
 #include <chrono>

@@ -27,7 +27,7 @@ std::vector<uint8_t> make_data(size_t n, uint64_t seed) {
   std::vector<uint8_t> v(n);
   uint64_t s = seed * 0x9E3779B97F4A7C15ull + 1;
   const char* words[] = {"the quick brown fox ", "lorem ipsum dolor ",
-                         "0123456789abcdef", "turbosqueeze tpu native "};
+                         "0123456789abcdef", "turbosqueeze native core "};
   size_t i = 0;
   while (i < n) {
     s ^= s << 13;

@@ -131,7 +131,7 @@ int64_t tsq_decode_block(const uint8_t* in_padded, uint64_t in_size,
   return tsq::decode_block(in_padded, in_size, out, out_capacity, ext != 0);
 }
 
-// Token extraction for TPU reconstruction kernels: fills parallel arrays
+// Token extraction for the device decode: fills parallel arrays
 // (dst, src, len, literal-flag), returns token count or negative Status.
 int64_t tsq_tokenize_block(const uint8_t* in_padded, uint64_t in_size,
                            int ext, uint32_t* dst, uint32_t* src,

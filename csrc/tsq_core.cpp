@@ -11,7 +11,7 @@ namespace {
 inline uint32_t load32(const uint8_t* p) {
   uint32_t v;
   std::memcpy(&v, p, 4);
-  return v;  // little-endian hosts only (x86/ARM/TPU VMs)
+  return v;  // little-endian hosts only (x86/ARM)
 }
 
 inline uint64_t load64(const uint8_t* p) {

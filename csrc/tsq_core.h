@@ -108,7 +108,7 @@ int64_t decompress_file(const char* in_path, const char* out_path,
 
 // --- Candidate-based encoding (device match finder + host emission) ---------
 //
-// TPU encode splits into: phase A on device (exact windowed predecessor
+// Device encode splits into: phase A on device (exact windowed predecessor
 // search, kernels/encode_xla.py) producing cand[i] = nearest j < i with the
 // same verified 4-byte window (-1 if none); phase B here: greedy emission
 // with the format's rep-anchor rules, walking the candidate chain when the
@@ -175,8 +175,8 @@ int64_t decompress_mt_dict(const uint8_t* in, size_t in_size,
 
 // --- Token extraction (device feeding) --------------------------------------
 //
-// Parses one block payload into fixed-width token arrays for the TPU
-// reconstruction kernels: per symbol {dst, src, len, is_literal} where
+// Parses one block payload into fixed-width token arrays for the device
+// decode (kernels/decode_xla.py): per symbol {dst, src, len, is_literal} where
 // literal src indexes the payload and match src indexes the output.
 struct Token {
   uint32_t dst;
@@ -190,60 +190,5 @@ struct Token {
 int64_t tokenize_block(const uint8_t* in, size_t in_size, bool ext,
                        Token* tokens, size_t max_tokens,
                        uint32_t* uncompressed_size, uint32_t base = 0);
-
-// --- Bulk-decode preparation (tsq_bulk.cpp) ---------------------------------
-//
-// Resolves every token of a block payload into already-final address space
-// (literal plane / previous-window output tail) and emits the row-grouped
-// record stream for the wave-free bulk reconstruction kernel
-// (kernels/decode_bulk.py). Geometry shared with the kernel:
-constexpr uint32_t kBulkWin = 1u << 21;        // output window bytes
-constexpr uint32_t kBulkTailRows = 130;        // >= (65534 + 64) / 512
-constexpr uint32_t kBulkTail = kBulkTailRows * 512;
-constexpr uint32_t kBulkMaxWin = kBlockSize / kBulkWin;
-constexpr uint32_t kBulkMetaWords = 8;
-// N-way merged-stream meta (bulk_mergen): sizes [0..3], n_win [4..7],
-// merged window boundaries [8..15] ([8] = 0)
-constexpr uint32_t kBulkMetaNWords = 16;
-// a match source resolving to more than this many final pieces is NOT
-// split (splitting cascades fragmentation); it defers to a W-space record
-constexpr int kBulkResolveK = 1;
-// sanity cap on topological depth (depth is stream order, not kernel
-// passes, so this is generous; beyond it the caller falls back)
-constexpr uint32_t kBulkMaxLevel = 1u << 20;
-constexpr int64_t kBulkFallback = -100;  // stream too fragmented
-constexpr int64_t kBulkOverflow = -101;  // rec buffer too small: retry
-constexpr int64_t kBulkBadArg = -102;    // invalid arguments: don't retry
-// entry record cap: bounds the kernel's per-entry record-stream
-// consumption so its SMEM prefetch ring lookahead stays fixed
-constexpr uint32_t kBulkMaxEntryRecs = 120;
-
-// Gang-stream geometry (csrc/tsq_gang.cpp, kernels/decode_gang.py):
-// fixed 16-word gang slots, rounds of nblk gangs, segments padded so the
-// kernel's round loop can unroll without remainder code.
-// [0..7] block sizes, [8..15] n_windows, [16+2w]/[17+2w] cumulative
-// rounds at the end of window w's U/W segment (w < 3), [30] total
-// rounds, [31] nblk — sized so all kGangMaxBlocks fit (a 16-word meta
-// clobbered n_windows with sizes for nblk >= 5).
-constexpr uint32_t kGangMetaWords = 32;
-constexpr uint32_t kGangMaxBlocks = 8;
-constexpr uint32_t kGangAlignRounds = 8;
-
-int64_t bulk_gang(const uint32_t* const* recs, const uint32_t* const* mas,
-                  uint32_t nblk, uint32_t slot_recs, uint32_t* out,
-                  uint64_t cap, uint32_t* gmeta);
-
-// meta[0]=block size, [1]=n_windows, [2]=literal bytes, [3]=record
-// words, [4+w]=record word offset where window w starts. With a preset
-// dictionary the output space is dict-extended ([0, dict_len + size),
-// the dictionary staged as a literal-plane copy at [0, dict_len)) and a
-// third window may be needed. `in` MUST have 64 readable ZERO bytes past
-// in_size (callers pad; literal copies read through truncated tails).
-// Returns record words written, kBulkFallback/kBulkOverflow, or a
-// negative Status for malformed payloads.
-int64_t bulk_prep(const uint8_t* in, size_t in_size, bool ext,
-                  const uint8_t* dict, uint32_t dict_len,
-                  uint8_t* lit, uint64_t lit_cap,
-                  uint32_t* rec, uint64_t rec_cap_words, uint32_t* meta);
 
 }  // namespace tsq

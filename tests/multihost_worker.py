@@ -35,10 +35,10 @@ def main():
     stream = open(stream_path, "rb").read()
     # file path: PER-HOST ordered writes — each process writes its own
     # shards at their block offsets; no host gathers another's bytes
-    pipeline.decompress_to_file(stream, out_path + ".perhost", impl="xla")
+    pipeline.decompress_to_file(stream, out_path + ".perhost")
     # memory path: shard-local host copies + HOST-0-ONLY assembly — each
     # nonzero rank sends its shard once and must NOT hold the output
-    out = pipeline.decompress(stream, impl="xla")
+    out = pipeline.decompress(stream)
     if jax.process_index() == 0:
         assert out == open(out_path + ".perhost", "rb").read()
         with open(out_path, "wb") as f:
@@ -50,20 +50,6 @@ def main():
     # (Every rank needs the plaintext input; rank 1's memory-path result
     # is empty by contract, so both read the per-host file.)
     data = open(out_path + ".perhost", "rb").read()
-    # bulk path across processes: the host resolver runs SHARD-LOCALLY
-    # (each process preps only its own blocks; plane shapes agreed by one
-    # scalar allgather), pair kernel included. Small slice bounds the
-    # interpret-mode cost.
-    from turbosqueeze_tpu.runtime import native as native_mod
-
-    sub = data[:600_000]
-    substream = native_mod.compress(sub, True, level=1)
-    for impl in ("bulk", "bulk2", "bulkn"):
-        got = pipeline.decompress(substream, impl=impl)
-        if jax.process_index() == 0:
-            assert got == sub, f"multi-process {impl} decode mismatch"
-        else:
-            assert got == b"", "nonzero rank must not hold bulk output"
     restream = pipeline.compress(data, ext=True, level=1)
     if jax.process_index() == 0:
         with open(out_path + ".tsq2", "wb") as f:
@@ -71,7 +57,7 @@ def main():
     # measure the chunked host-0 KV assembly hop in isolation (the
     # coordination-service data hop is bounded at _HOST0_CHUNK per value;
     # this records its actual throughput so deployments can size against
-    # it — VERDICT r3 weak #5). 32 MiB block-sharded across both hosts.
+    # it). 32 MiB block-sharded across both hosts.
     import time
 
     import numpy as np

@@ -1,6 +1,6 @@
 """XLA scatter/gather decode formulation (kernels/decode_xla.py).
 
-Portable (no Mosaic): runs identically on the CPU test mesh and on TPU.
+Plain XLA: runs identically on the CPU test mesh and on the GPU.
 Exactness is cross-checked against the oracle codec and the native core,
 including adversarial chain depths (the pointer-doubling worst case).
 """

@@ -1,8 +1,8 @@
-"""Device (TPU/CPU-mesh) codec path: kernels, sharded pipeline, backends.
+"""Device codec path: XLA programs, sharded pipeline, backends.
 
 Runs on the 8-virtual-device CPU mesh (conftest sets
-xla_force_host_platform_device_count=8); the Pallas kernel executes in
-interpret mode on CPU and compiled via Mosaic on real TPUs.
+xla_force_host_platform_device_count=8); the same XLA programs compile for
+the GPU in production.
 """
 
 import subprocess
@@ -36,7 +36,7 @@ def test_eight_virtual_devices():
 def test_single_block_device_decode(corpus_cases, ext):
     for data in corpus_cases[:6]:
         payload = rc.encode_block(data, ext)
-        assert decode_block_device(payload, ext, interpret=True) == data
+        assert decode_block_device(payload, ext) == data
 
 
 def test_sharded_decompress_multiblock():
@@ -58,7 +58,7 @@ def test_pipeline_per_block_progress():
     data = synthetic_text(2 * (1 << 22) + 999, seed=57)  # 3 blocks
     stream = native.compress(data, True)
     ticks = []
-    out = pipeline.decompress(stream, impl="xla",
+    out = pipeline.decompress(stream,
                               progress=lambda d, t: ticks.append((d, t)))
     assert out == data
     assert ticks == [(k + 1, 3) for k in range(3)]
@@ -126,42 +126,28 @@ def test_device_matches_host_candidates():
 
 
 @pytest.mark.slow
-def test_tpu_backend_via_api():
+def test_device_backend_via_api():
     from turbosqueeze_tpu.runtime.api import compress, decompress
 
     data = synthetic_text(300_000, seed=37)
-    stream = compress(data, ext=True, backend="tpu")
-    assert decompress(stream, backend="tpu") == data
+    stream = compress(data, ext=True, backend="device")
+    assert decompress(stream, backend="device") == data
     # cross-backend
     assert decompress(stream, backend="native") == data
 
 
-@pytest.mark.parametrize("emit_impl", ["bulk", "scan", "flat"])
-@pytest.mark.slow
-def test_pipeline_device_emission_forced(monkeypatch, emit_impl):
-    """Full pipeline.compress with on-chip emission (normally TPU-gated)
-    forced onto the CPU mesh in interpret mode: the container must be
-    byte-identical to the host level-1 path for both device emitters.
-    One sub-BLOCK_SZ block keeps interpret-mode scan time bounded."""
+@pytest.mark.parametrize("ext", [False, True])
+def test_device_compress_level0_matches_native(ext):
+    """Level 0 through the device backend is the upstream parse: the
+    container is byte-identical to native level 0 (and not to level 1)."""
     from turbosqueeze_tpu.runtime import native
+    from turbosqueeze_tpu.runtime.api import compress
 
-    monkeypatch.setenv("TSQ_FORCE_DEVICE_EMIT", "1")
-    data = synthetic_text(120_000, seed=83) + bytes(6_000)
-    stream = pipeline.compress(data, ext=True, emit_impl=emit_impl)
-    assert stream == native.compress(data, True, level=1)
+    data = synthetic_text((1 << 22) + 300_000, seed=37)  # 2 blocks
+    stream = compress(data, ext=ext, backend="device", level=0)
+    assert stream == native.compress(data, ext, level=0)
+    assert stream != native.compress(data, ext, level=1)
     assert pipeline.decompress(stream) == data
-
-
-@pytest.mark.slow
-def test_pipeline_device_emission_forced_dict(monkeypatch):
-    from turbosqueeze_tpu.runtime import native
-
-    monkeypatch.setenv("TSQ_FORCE_DEVICE_EMIT", "1")
-    d = synthetic_text(50_000, seed=84)
-    data = synthetic_text(80_000, seed=85)
-    stream = pipeline.compress(data, ext=True, dictionary=d)
-    assert stream == native.compress_dict(data, d, True, level=1)
-    assert pipeline.decompress(stream, dictionary=d) == data
 
 
 def test_decompress_to_words_stays_sharded():
@@ -176,6 +162,9 @@ def test_decompress_to_words_stays_sharded():
     assert hdr.total_size == len(data)
     shard_devs = {s.device.id for s in words.addressable_shards}
     assert len(shard_devs) == 8
+    host = np.asarray(words)
+    assert b"".join(host[b, :sizes[b]].tobytes()
+                    for b in range(8)) == data
 
 
 @pytest.mark.slow
@@ -190,6 +179,6 @@ def test_decompress_to_file_per_host_writes(tmp_path):
     data = synthetic_text((1 << 22) + 70_000, seed=71)  # 2 blocks
     stream = native.compress(data, True)
     out = tmp_path / "out.bin"
-    n = pipeline.decompress_to_file(stream, str(out), impl="xla")
+    n = pipeline.decompress_to_file(stream, str(out))
     assert n == len(data)
     assert out.read_bytes() == data

@@ -98,8 +98,8 @@ def test_api_and_cli_dict(native, dictionary, tmp_path):
 
 @pytest.mark.slow
 def test_device_dict_compress(native, dictionary):
-    """TPU backend: dictionary broadcast across the mesh + device candidate
-    search over concat(dict, block)."""
+    """Device backend: dictionary broadcast across the mesh + device
+    candidate search over concat(dict, block)."""
     from turbosqueeze_tpu.parallel import pipeline
 
     data = synthetic_text(300_000, seed=505)
@@ -112,19 +112,17 @@ def test_device_dict_compress(native, dictionary):
 
 def test_device_dict_decode(native, dictionary):
     """Dict streams decode on the device mesh: the dictionary is staged by
-    synthetic literal tokens (block.tokenize_with_dict), both decode impls."""
+    synthetic literal tokens (block.tokenize_with_dict)."""
     from turbosqueeze_tpu.parallel import pipeline
 
     data = synthetic_text(300_000, seed=97)
     stream = native.compress_dict(data, dictionary, True)
-    assert pipeline.decompress(stream, dictionary=dictionary,
-                               impl="xla") == data
-    assert pipeline.decompress(stream, dictionary=dictionary,
-                               impl="pallas") == data
+    assert pipeline.decompress(stream, dictionary=dictionary) == data
     # api routing
     from turbosqueeze_tpu.runtime.api import decompress
 
-    assert decompress(stream, backend="tpu", dictionary=dictionary) == data
+    assert decompress(stream, backend="device",
+                      dictionary=dictionary) == data
 
 
 def test_device_dict_decode_multiblock(native, dictionary):
@@ -135,33 +133,10 @@ def test_device_dict_decode_multiblock(native, dictionary):
     assert pipeline.decompress(stream, dictionary=dictionary) == data
 
 
-def test_device_dict_decode_stream_widens_output(native, dictionary,
-                                                 monkeypatch):
-    """The fused-parser (stream) window must widen its on-chip output
-    region when a dictionary is staged: writes land at dict-extended
-    positions up to dict_len + size, which overflows the base slack on
-    full blocks (ADVICE r1, high). Shrinking OUT_ROWS makes a small block
-    exercise the same overflow cheaply."""
-    from turbosqueeze_tpu.kernels import decode_tokens as DK
-    from turbosqueeze_tpu.parallel import pipeline
-
-    data = synthetic_text(11_500, seed=99)
-    stream = native.compress_dict(data, dictionary, True)
-    # dict_len + size = ~43.5 KB > 24 rows * 512 B: without the _DICT_PAD
-    # widening the kernel's output region cannot hold the decoded bytes
-    monkeypatch.setattr(DK, "OUT_ROWS", 24)
-    pipeline._sharded_decode_stream.cache_clear()
-    try:
-        assert pipeline.decompress(stream, dictionary=dictionary,
-                                   impl="stream") == data
-    finally:
-        pipeline._sharded_decode_stream.cache_clear()
-
-
 @pytest.mark.slow
 def test_dict_level2_lazy_parse(native, dictionary):
     """level >= 2 selects the lazy best-of-chain parse in dictionary mode
-    too (ADVICE r1: level used to silently stay greedy with a dict)."""
+    too (level used to silently stay greedy with a dict)."""
     data = synthetic_text(200_000, seed=506)
     greedy = native.compress_dict(data, dictionary, True, level=1)
     lazy = native.compress_dict(data, dictionary, True, level=2)

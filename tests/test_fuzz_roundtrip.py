@@ -1,9 +1,9 @@
 """Randomized roundtrip property tests across parse levels.
 
-The r2 offset-window-wrap bug (see test_encode_emit.py regression) was a
-data-dependent silent mis-encode that survived 88 structured tests and a
-256 MiB bench corpus before a 1 GiB run exposed it. These fuzz cases mix
-content classes whose boundaries produce the hazardous shapes: long
+An offset-window-wrap bug (the window_edge cases of tests/edge_cases.py)
+was a data-dependent silent mis-encode that survived 88 structured tests
+and a 256 MiB bench corpus before a 1 GiB run exposed it. These fuzz cases
+mix content classes whose boundaries produce the hazardous shapes: long
 unique runs ending at window-edge repeats, dense short matches, zero
 runs, and abrupt entropy switches.
 """
@@ -14,7 +14,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from turbosqueeze_tpu.utils.corpus import synthetic_binary, synthetic_text
+from tests.edge_cases import mixed_case
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -30,32 +30,10 @@ def native():
     return mod
 
 
-def _mixed_case(rng, size):
-    """Content with abrupt class switches at random boundaries."""
-    parts = []
-    n = 0
-    while n < size:
-        kind = rng.integers(0, 5)
-        ln = int(rng.integers(500, 70_000))
-        if kind == 0:
-            parts.append(rng.bytes(ln))                   # incompressible
-        elif kind == 1:
-            parts.append(bytes(ln))                       # zeros
-        elif kind == 2:
-            parts.append(synthetic_text(ln, seed=int(rng.integers(1e6))))
-        elif kind == 3:
-            parts.append(synthetic_binary(ln, seed=int(rng.integers(1e6))))
-        else:                                             # re-quote earlier
-            prev = b"".join(parts)[-70_000:] or b"seed"
-            parts.append((prev * 3)[:ln])
-        n += ln
-    return b"".join(parts)[:size]
-
-
 @pytest.mark.parametrize("seed", [1, 2, 3, 4])
 def test_fuzz_roundtrip_all_levels(native, seed):
     rng = np.random.default_rng(seed)
-    data = _mixed_case(rng, int(rng.integers(150_000, 400_000)))
+    data = mixed_case(rng, int(rng.integers(150_000, 400_000)))
     for ext in (True, False):
         for level in (0, 1, 2):
             s = native.compress(data, ext, level=level)
@@ -65,20 +43,3 @@ def test_fuzz_roundtrip_all_levels(native, seed):
     d = data[:40_000]
     sd = native.compress_dict(data, d, True, level=2)
     assert native.decompress_dict(sd, d) == data
-
-
-@pytest.mark.parametrize("seed", [11, 12])
-def test_fuzz_bulk_emit_identity(native, seed):
-    """Mixed-class fuzz through the two-pass device emitter (interpret):
-    byte-identity vs the host level-1 emission on exactly the boundary
-    shapes that broke the single-pass emitter in r2 (window-edge repeats,
-    entropy switches, zero runs)."""
-    from turbosqueeze_tpu.kernels import encode_bulk as EB
-
-    rng = np.random.default_rng(seed)
-    data = _mixed_case(rng, int(rng.integers(60_000, 140_000)))
-    cand = native.build_candidates(data)
-    want = native.encode_block_candidates(data, cand, True, level=1)
-    got, ovf = EB.emit_bulk_block(data, cand, ext=True, interpret=True)
-    assert ovf == 0
-    assert got == want, f"seed={seed}"

@@ -142,3 +142,32 @@ def test_level2_pathological_inputs(native):
         assert native.decompress(s2) == data
         s2n = native.compress(data, False, level=2)
         assert native.decompress(s2n) == data
+
+
+def test_concurrent_first_load(native):
+    """The first native calls may come from many emission threads at once
+    (pipeline.compress): every one of them must find the core."""
+    import sys
+    import threading
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for _ in range(20):
+            native._LIB, native._SEARCHED = None, False
+            barrier = threading.Barrier(16)
+            seen = []
+
+            def probe():
+                barrier.wait(timeout=30)
+                seen.append(native.available())
+
+            threads = [threading.Thread(target=probe) for _ in range(16)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=30)
+            assert not any(t.is_alive() for t in threads)
+            assert seen == [True] * 16
+    finally:
+        sys.setswitchinterval(interval)

@@ -1,13 +1,14 @@
-"""turbosqueeze_tpu — a TPU-native lossless compression framework.
+"""turbosqueeze_tpu — a lossless compression framework for accelerators.
 
-A from-scratch JAX/XLA/Pallas + C++ implementation of the Turbosqueeze
-`.tsq` realtime compression format (LZ77-family, independent 4 MiB blocks,
-TSQ1 container), designed TPU-first:
+A from-scratch JAX/XLA + C++ implementation of the Turbosqueeze `.tsq`
+realtime compression format (LZ77-family, independent 4 MiB blocks, TSQ1
+container):
 
   * blocks are the unit of data parallelism, sharded over a
-    ``jax.sharding.Mesh`` across chips and hosts (the reference's
+    ``jax.sharding.Mesh`` across devices and hosts (the reference's
     reader/workers/writer thread pipeline, re-expressed as SPMD);
-  * decode/encode hot loops run as XLA/Pallas programs on-chip;
+  * the decode and the encoder's match search run as XLA programs on the
+    device (an NVIDIA GPU in production);
   * a native C++ core (csrc/) provides the host-side runtime: exact codec,
     multithreaded block scheduler, container I/O — the moral equivalent of
     the reference's tsq_threads.cpp engine;
@@ -22,7 +23,7 @@ from .format import BLOCK_SZ, OUTPUT_SZ, FormatError  # noqa: F401
 
 def compress(data: bytes, ext: bool = True, backend: str = "auto",
              level: int = 0, dictionary: bytes = None) -> bytes:
-    """Compress bytes into a .tsq container. Backend: auto|native|oracle|tpu.
+    """Compress bytes into a .tsq container. Backend: auto|native|oracle|device.
 
     level: 0 = upstream-identical greedy parse, 1 = exact candidate parse,
     >= 2 = lazy best-of-chain (smaller, same format). dictionary: <= 64 KiB
@@ -37,7 +38,7 @@ def compress(data: bytes, ext: bool = True, backend: str = "auto",
 
 def decompress(stream: bytes, backend: str = "auto",
                dictionary: bytes = None) -> bytes:
-    """Decompress a .tsq container. Backend: auto|native|oracle|tpu."""
+    """Decompress a .tsq container. Backend: auto|native|oracle|device."""
     from .runtime.api import decompress as _decompress
 
     return _decompress(stream, backend=backend, dictionary=dictionary)

@@ -1,7 +1,7 @@
-"""Device block codec glue: host token parse + on-chip reconstruction.
+"""Device block codec glue: host token parse + device reconstruction.
 
 This is the single-block device path (SURVEY.md §7 step 4: one stream
-compressed/decompressed on TPU). The multi-block sharded engine lives in
+decompressed on the device). The multi-block sharded engine lives in
 parallel/pipeline.py.
 """
 
@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 
 from .format import FormatError
-from .kernels import decode_tokens as K
+from .kernels import decode_xla as DXL
 
 
 def dict_prefix_tokens(payload_len: int, dict_len: int):
@@ -20,9 +20,7 @@ def dict_prefix_tokens(payload_len: int, dict_len: int):
     appended AFTER the payload and these tokens copy it to output positions
     [0, dict_len) like ordinary literals; the real stream's tokens (emitted
     in dict-extended coordinates by tokenize_block(dict_len=...)) then
-    reference it as decoded history. The count is kept EVEN — a trailing
-    zero-length no-op if needed — so the real stream's format-pair phase is
-    preserved for the Pallas kernel's pair-fused hazard rule.
+    reference it as decoded history.
     Returns (dst, src, ln, lit) int32 arrays.
     """
     dsts, srcs, lns = [], [], []
@@ -33,10 +31,6 @@ def dict_prefix_tokens(payload_len: int, dict_len: int):
         srcs.append(payload_len + off)
         lns.append(ln)
         off += ln
-    if len(dsts) % 2:
-        dsts.append(dict_len)
-        srcs.append(payload_len)
-        lns.append(0)  # no-op keeps the pair phase
     n = len(dsts)
     return (np.asarray(dsts, np.int32), np.asarray(srcs, np.int32),
             np.asarray(lns, np.int32), np.ones(n, np.int32))
@@ -64,31 +58,23 @@ def tokenize_with_dict(payload: bytes, ext: bool, dictionary: bytes | None):
 
 
 def decode_block_device(payload: bytes, ext: bool, *,
-                        interpret: bool = False,
-                        n_chunks: int | None = None,
                         dictionary: bytes | None = None) -> bytes:
-    """Decode one block payload with the Pallas reconstruction kernel.
+    """Decode one block payload with the device decode (kernels/decode_xla).
 
     Phase A (token parse) runs on host via the native tokenizer; phase B
-    (all byte movement) runs on-device. With ``dictionary`` the preset
-    context is staged by synthetic literal tokens (guard-region decode,
-    the device twin of csrc decode_block_dict).
+    (all byte movement) runs on the device. The output plane is bucketed
+    to a power of two so blocks of nearby sizes share one compiled program.
+    With ``dictionary`` the preset context is staged by synthetic literal
+    tokens (guard-region decode, the device twin of csrc
+    decode_block_dict).
     """
     pay2, dst, src, ln, lit, size, base = tokenize_with_dict(
         payload, ext, dictionary)
-    if n_chunks is None:
-        n_chunks = K.n_chunks_for_tokens(len(dst))
-    pay_rows = -(-(len(pay2) + 1) // K.ROW_BYTES) + 16
-    pay_rows = max(-(-pay_rows // 8) * 8, 8)
-    out_rows = -(-(base + size + 1) // K.ROW_BYTES) + 16
-    out_rows = max(-(-out_rows // 8) * 8, 8)
-    tok_a, tok_b = K.pack_tokens(dst, src, ln, lit, n_chunks,
-                                 pay_rows=pay_rows)
-    words = K.decode_tokens_batch(
-        K.pack_payload_words(pay2, pay_rows=pay_rows)[None],
-        tok_a[None], tok_b[None], interpret=interpret, out_rows=out_rows)
-    out = np.asarray(words[0]).reshape(-1).view("<u1")
-    out = out[base:base + size].tobytes()
+    n_out = max(4096, 1 << (base + size).bit_length())
+    planes = DXL.pack_token_batch([(dst, src, ln, lit)], n_out)
+    out = DXL.decode_batch_xla(*planes, DXL.pack_payload_batch([pay2]),
+                               n_out=n_out)
+    out = np.asarray(out[0, base:base + size]).tobytes()
     if len(out) != size:
         raise FormatError("device decode size mismatch")
     return out

@@ -5,11 +5,9 @@ Verb parity with the upstream sample CLI (sample/main.cpp:117-169):
     tsq d <input> <output>                decompress
     tsq b [path]                          benchmark
 plus framework verbs:
-    tsq x <file.tsq> <file.tsqx>          pack to the TPU serving profile
     tsq info <file.tsq>                   container inspection
     tsq verify <input> <file.tsq>         roundtrip check
-(`tsq d` decodes both .tsq and .tsqx containers.)
-Options: --backend {auto,native,oracle,tpu}, --threads N, --level N
+Options: --backend {auto,native,oracle,device}, --threads N, --level N
 (0 = upstream-identical greedy parse; 1 = exact candidate parse; >= 2 =
 lazy best-of-chain parse — smaller output, same format; the upstream
 plumbs this flag but never reads it), --ext/--no-ext.
@@ -71,51 +69,18 @@ def cmd_compress(args) -> int:
     return 0
 
 
-def cmd_pack(args) -> int:
-    """Convert .tsq -> TSQX (the TPU serving profile): the host resolver
-    runs ONCE here so decode-time host cost drops to a file read +
-    device_put (see turbosqueeze_tpu/tsqx.py)."""
-    import os
-
-    from . import tsqx
-
-    t0 = time.perf_counter()
-    stream = open(args.input, "rb").read()
-    packed = tsqx.pack(stream, nblk=args.nblk,
-                       threads=args.threads or None)
-    with open(args.output, "wb") as f:
-        f.write(packed)
-    dt = time.perf_counter() - t0
-    print(f"{_human(os.path.getsize(args.input))} -> {_human(len(packed))} "
-          f"TSQX in {dt:.2f}s")
-    return 0
-
-
 def cmd_decompress(args) -> int:
     import os
 
     t0 = time.perf_counter()
     dictionary = _read_dict(args)
     in_size = os.path.getsize(args.input)
-    with open(args.input, "rb") as f:
-        magic = f.read(4)
-    if magic == b"TSQX":
-        from .runtime.api import decompress
-
-        data = decompress(open(args.input, "rb").read())
-        with open(args.output, "wb") as f:
-            f.write(data)
-        out_size = len(data)
-        dt = time.perf_counter() - t0
-        print(f"{_human(in_size)} -> {_human(out_size)} "
-              f"in {dt:.2f}s ({out_size / 1e6 / dt:,.0f} MB/s)")
-        return 0
     if dictionary is None and _native_streaming(args.backend):
         from .runtime import native
 
         out_size = native.decompress_file(args.input, args.output,
                                           args.threads)
-    elif args.backend == "tpu":
+    elif args.backend == "device":
         # sharded decode with per-host ordered writes (each process
         # writes its own shards at their fixed 4 MiB offsets)
         from .parallel import pipeline
@@ -207,9 +172,9 @@ def cmd_verify(args) -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="tsq",
-        description="Turbosqueeze TPU — TPU-native .tsq compression")
+        description="Turbosqueeze .tsq compression on host or device")
     p.add_argument("--backend", default="auto",
-                   choices=["auto", "native", "oracle", "tpu"])
+                   choices=["auto", "native", "oracle", "device"])
     p.add_argument("--threads", type=int, default=0)
     sub = p.add_subparsers(dest="verb", required=True)
 
@@ -237,13 +202,6 @@ def main(argv=None) -> int:
     pb.add_argument("--size", type=int, default=64, help="synthetic MiB")
     pb.set_defaults(fn=cmd_bench)
 
-    px = sub.add_parser("x", help="pack .tsq -> TSQX (TPU serving profile)")
-    px.add_argument("input")
-    px.add_argument("output")
-    px.add_argument("--nblk", type=int, default=4,
-                    help="gang co-schedule width (1..8; default 4)")
-    px.set_defaults(fn=cmd_pack)
-
     pi = sub.add_parser("info", help="inspect a .tsq container")
     pi.add_argument("input")
     pi.add_argument("--blocks", action="store_true")
@@ -255,6 +213,10 @@ def main(argv=None) -> int:
     pv.set_defaults(fn=cmd_verify)
 
     args = p.parse_args(argv)
+    if args.backend == "device":
+        from .utils.compile_cache import enable_compile_cache
+
+        enable_compile_cache()
     try:
         return args.fn(args)
     except (OSError, ValueError) as e:  # FormatError is a ValueError

@@ -3,7 +3,7 @@
 This module is the executable spec of the Turbosqueeze on-disk format. It is
 the single source of truth for all constants, the ``TSQ1`` container layout,
 and the per-block 3-byte headers. Every other component (numpy oracle codec,
-C++ native core, JAX/Pallas kernels) conforms to this module.
+C++ native core, JAX device programs) conforms to this module.
 
 Format parity notes (reference: julienperriercornet/turbosqueeze):
   * constants             -> turbosqueeze.h:37-43

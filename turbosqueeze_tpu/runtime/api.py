@@ -4,7 +4,7 @@ Backends:
   * ``oracle`` — pure-Python exact codec (slow; the executable spec).
   * ``native`` — C++ multithreaded core via ctypes (host production path,
     the equivalent of tsqCompress_MT/tsqDecompress_MT).
-  * ``tpu``    — JAX device pipeline (blocks sharded over the mesh).
+  * ``device`` — JAX device pipeline (blocks sharded over the mesh).
   * ``auto``   — best available: native if built, else oracle.
 """
 
@@ -22,23 +22,11 @@ def _native_available() -> bool:
         return False
 
 
-def _resolve(backend: str, warn_tpu_compress: bool = False) -> str:
+def _resolve(backend: str) -> str:
     if backend == "auto":
         return "native" if _native_available() else "oracle"
-    if backend not in ("oracle", "native", "tpu"):
+    if backend not in ("oracle", "native", "device"):
         raise ValueError(f"unknown backend: {backend!r}")
-    if backend == "tpu" and warn_tpu_compress:
-        # measured on v5e (BASELINE.md): device-resident emission runs
-        # ~26-30 MB/s/chip vs ~300 MB/s for the host MT path — the scalar
-        # unit cannot absorb LZ emission. Don't let an explicit
-        # --backend tpu silently cost 10x on the encode side.
-        import warnings
-
-        warnings.warn(
-            "backend='tpu' compression is currently much slower than the "
-            "native host path (~26 vs ~300 MB/s per chip/core measured); "
-            "use backend='auto' unless you need device-resident encode",
-            RuntimeWarning, stacklevel=3)
     return backend
 
 
@@ -53,11 +41,11 @@ def compress(data: bytes, ext: bool = True, backend: str = "auto",
     ``dictionary`` (framework extension, <=64 KiB) supplies shared context
     virtually preceding every block; both ends must use the same one.
     """
-    b = _resolve(backend, warn_tpu_compress=True)
+    b = _resolve(backend)
     if dictionary is not None:
         if b == "oracle":
             raise NotImplementedError(
-                "dictionary mode needs the native or tpu backend")
+                "dictionary mode needs the native or device backend")
         if b == "native":
             from . import native
 
@@ -83,21 +71,12 @@ def compress(data: bytes, ext: bool = True, backend: str = "auto",
 
 def decompress(stream: bytes, backend: str = "auto",
                dictionary: bytes = None, progress=None) -> bytes:
-    """Decompress a .tsq (or TSQX serving-profile) container."""
-    if len(stream) >= 4 and stream[:4] == b"TSQX":
-        # TSQX: pre-resolved gang planes (framework serving profile);
-        # decodes on the device mesh with zero host resolution
-        from .. import tsqx
-
-        if dictionary is not None:
-            raise FormatError("TSQX containers embed their context; "
-                              "dictionary does not apply")
-        return tsqx.decompress(stream)
+    """Decompress a .tsq container."""
     if len(stream) < 16 or stream[:4] != b"TSQ1":
         raise FormatError("not a TSQ1 stream")
     b = _resolve(backend)
     if dictionary is not None:
-        if b == "tpu":
+        if b == "device":
             from ..parallel import pipeline
 
             return pipeline.decompress(stream, dictionary=dictionary,

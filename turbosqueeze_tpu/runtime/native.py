@@ -8,11 +8,16 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 from pathlib import Path
 from typing import Optional
 
 _LIB: Optional[ctypes.CDLL] = None
 _SEARCHED = False
+# the device pipeline's first native calls can come from several emission
+# threads at once; without the lock a thread could see _SEARCHED set
+# before _LIB is and report the core as missing
+_LOAD_LOCK = threading.Lock()
 
 # Zero-copy result buffers: decode sizes are exact (the container header
 # declares them), so the native core can write straight into a freshly
@@ -91,13 +96,18 @@ def _find_library() -> Optional[Path]:
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _LIB, _SEARCHED
-    if _SEARCHED:
+    with _LOAD_LOCK:
+        if not _SEARCHED:
+            _bind()
         return _LIB
+
+
+def _bind() -> None:
+    global _LIB, _SEARCHED
     _SEARCHED = True
     path = _find_library()
     if path is None:
-        return None
+        return
     lib = ctypes.CDLL(str(path))
     lib.tsq_compress_bound.restype = ctypes.c_uint64
     lib.tsq_compress_bound.argtypes = [ctypes.c_uint64]
@@ -120,35 +130,6 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.c_char_p, ctypes.c_uint64, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32,
-    ]
-    lib.tsq_bulk_prep.restype = ctypes.c_int64
-    lib.tsq_bulk_prep.argtypes = [
-        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_uint64,
-        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p,
-    ]
-    lib.tsq_bulk_prep_dict.restype = ctypes.c_int64
-    lib.tsq_bulk_prep_dict.argtypes = [
-        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_int,
-        ctypes.c_char_p, ctypes.c_uint32,
-        ctypes.c_void_p, ctypes.c_uint64,
-        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p,
-    ]
-    lib.tsq_bulk_merge2.restype = ctypes.c_int64
-    lib.tsq_bulk_merge2.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p,
-    ]
-    lib.tsq_bulk_mergen.restype = ctypes.c_int64
-    lib.tsq_bulk_mergen.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
-        ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p,
-    ]
-    lib.tsq_bulk_gang.restype = ctypes.c_int64
-    lib.tsq_bulk_gang.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
-        ctypes.c_uint32, ctypes.c_void_p, ctypes.c_uint64,
-        ctypes.c_void_p,
     ]
     lib.tsq_build_candidates.restype = None
     lib.tsq_build_candidates.argtypes = [
@@ -193,7 +174,6 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.c_char_p, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32]
     _LIB = lib
-    return _LIB
 
 MAX_DICT = 65536 - 4
 
@@ -310,7 +290,7 @@ def encode_block_candidates(block: bytes, cand, ext: bool,
 
 def tokenize_block(payload: bytes, ext: bool, dict_len: int = 0):
     """Parse one block payload into token arrays (dst, src, len, lit) plus
-    the uncompressed size. Phase A of the TPU decode path. With dict_len,
+    the uncompressed size. Phase A of the device decode path. With dict_len,
     positions come out in the dict-extended output space [0, dict_len+size)
     so dictionary-reaching match sources stay non-negative."""
     import numpy as np
@@ -337,152 +317,6 @@ def tokenize_block(payload: bytes, ext: bool, dict_len: int = 0):
     return (dst[:n].astype(np.int32), src[:n].astype(np.int32),
             ln[:n].astype(np.int32), lit[:n].astype(np.int32),
             int(size.value))
-
-
-BULK_FALLBACK = -100  # stream too fragmented for the bulk formulation
-
-
-def bulk_prep(payload: bytes, ext: bool, dictionary: bytes = None):
-    """Resolve one block payload into the bulk-decode planes
-    (csrc/tsq_bulk.cpp): compacted literal bytes, row-grouped record
-    stream, and the meta words (size, n_windows, lit bytes, record words,
-    per-window record offsets). Returns (lit u8[], rec u32[], meta u32[]).
-    With ``dictionary`` the planes cover the dict-extended output space
-    [0, dict_len + size) (the dictionary staged as a literal-plane copy —
-    the resolver twin of the guard-region decode); the caller slices the
-    decoded rows at [dict_len, dict_len + size). Raises FormatError on
-    malformed payloads; returns None when the stream is too fragmented
-    for the bulk formulation (caller should decode that block through
-    the fused-parser path instead)."""
-    import numpy as np
-
-    from ..format import FormatError
-
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native core not built (run `make -C csrc`)")
-    padded = payload + bytes(64)
-    size = (payload[0] | (payload[1] << 8) | (payload[2] << 16)
-            if len(payload) >= 3 else 0)
-    dlen = len(dictionary) if dictionary else 0
-    lit = np.empty(dlen + size + 64, dtype=np.uint8)
-    meta = np.zeros(8, dtype=np.uint32)
-    # record words scale with tokens (~0.5 words per payload byte
-    # measured on level-0 text); 2 w/B gives ~4x headroom so the
-    # overflow retry (which re-parses) is a cold path, not the common one
-    rec_cap = max(1 << 19, 2 * len(payload))
-    while True:
-        rec = np.empty(rec_cap, dtype=np.uint32)
-        if dlen:
-            n = lib.tsq_bulk_prep_dict(
-                padded, len(payload), 1 if ext else 0, dictionary, dlen,
-                lit.ctypes.data, lit.shape[0],
-                rec.ctypes.data, rec_cap, meta.ctypes.data)
-        else:
-            n = lib.tsq_bulk_prep(
-                padded, len(payload), 1 if ext else 0,
-                lit.ctypes.data, lit.shape[0],
-                rec.ctypes.data, rec_cap, meta.ctypes.data)
-        if n == -101 and rec_cap < (1 << 24):  # overflow: retry bigger
-            rec_cap *= 4
-            continue
-        break
-    if n == BULK_FALLBACK or n == -101:
-        return None
-    if n < 0:
-        raise FormatError(f"bulk prep failed (code {n})")
-    return lit[:int(meta[2])], rec[:int(n)], meta
-
-
-def bulk_merge2(rec_a, meta_a, rec_b, meta_b):
-    """Zip two blocks' bulk record streams into the strictly-alternating
-    merged stream for the two-block co-scheduled kernel. Returns
-    (merged u32[], meta2 u32[8])."""
-    import numpy as np
-
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native core not built (run `make -C csrc`)")
-    cap = 2 * (len(rec_a) + len(rec_b)) + 4096
-    out = np.empty(cap, dtype=np.uint32)
-    meta2 = np.zeros(8, dtype=np.uint32)
-    rec_a = np.ascontiguousarray(rec_a, dtype=np.uint32)
-    rec_b = np.ascontiguousarray(rec_b, dtype=np.uint32)
-    meta_a = np.ascontiguousarray(meta_a, dtype=np.uint32)
-    meta_b = np.ascontiguousarray(meta_b, dtype=np.uint32)
-    n = lib.tsq_bulk_merge2(rec_a.ctypes.data, meta_a.ctypes.data,
-                            rec_b.ctypes.data, meta_b.ctypes.data,
-                            out.ctypes.data, cap, meta2.ctypes.data)
-    if n < 0:
-        raise RuntimeError(f"bulk merge failed (code {n})")
-    return out[:int(n)], meta2
-
-
-def bulk_mergen(recs, metas):
-    """Zip N (<= 4) blocks' bulk record streams into one strictly
-    round-robin merged stream for the N-way co-scheduled kernel. Returns
-    (merged u32[], metan u32[16]): sizes [0..3], n_win [4..7], merged
-    window boundaries [8..15] ([8] = 0)."""
-    import numpy as np
-
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native core not built (run `make -C csrc`)")
-    nblk = len(recs)
-    assert 1 <= nblk <= 4 and len(metas) == nblk
-    recs = [np.ascontiguousarray(r, dtype=np.uint32) for r in recs]
-    metas = [np.ascontiguousarray(m, dtype=np.uint32) for m in metas]
-    cap = 2 * sum(len(r) for r in recs) + 4096
-    out = np.empty(cap, dtype=np.uint32)
-    metan = np.zeros(16, dtype=np.uint32)
-    rp = (ctypes.c_void_p * nblk)(*[r.ctypes.data for r in recs])
-    mp = (ctypes.c_void_p * nblk)(*[m.ctypes.data for m in metas])
-    n = lib.tsq_bulk_mergen(rp, mp, nblk, out.ctypes.data, cap,
-                            metan.ctypes.data)
-    if n < 0:
-        raise RuntimeError(f"bulk mergen failed (code {n})")
-    return out[:int(n)], metan
-
-
-def bulk_gang(recs, metas, slot_recs: int = 8):
-    """Re-shape N (<= 8) blocks' bulk record streams into the
-    fixed-geometry gang stream for the round-4 co-scheduled kernel
-    (csrc/tsq_gang.cpp ABI). Returns (gang u32[], gmeta u32[32]):
-    sizes [0..7], n_win [8..15], per-window U/W segment round boundaries
-    [16..21], total rounds [30], nblk [31]."""
-    import numpy as np
-
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native core not built (run `make -C csrc`)")
-    nblk = len(recs)
-    assert 1 <= nblk <= 8 and len(metas) == nblk
-    recs = [np.ascontiguousarray(r, dtype=np.uint32) for r in recs]
-    metas = [np.ascontiguousarray(m, dtype=np.uint32) for m in metas]
-    # worst case: one block holds every entry (others pad with null
-    # gangs), entries as short as one record each (4 -> nblk*16 words)
-    cap = nblk * 4 * max(max(len(r) for r in recs), 64) + 64 * nblk * 16
-    rp = (ctypes.c_void_p * nblk)(*[r.ctypes.data for r in recs])
-    mp = (ctypes.c_void_p * nblk)(*[m.ctypes.data for m in metas])
-    for _ in range(3):
-        out = np.empty(cap, dtype=np.uint32)
-        # the merged stream is tens of MB of fresh pages; THP advice cuts
-        # this box's pathological first-touch fault cost ~40x (see
-        # _advise_hugepages)
-        _advise_hugepages(out.ctypes.data, out.nbytes)
-        gmeta = np.zeros(32, dtype=np.uint32)
-        n = lib.tsq_bulk_gang(rp, mp, nblk, slot_recs, out.ctypes.data,
-                              cap, gmeta.ctypes.data)
-        if n >= 0:
-            return out[:int(n)], gmeta
-        if n == -102:  # kBulkBadArg: invalid nblk/slot_recs/n_windows
-            raise ValueError(
-                f"bulk_gang invalid arguments (nblk={nblk}, "
-                f"slot_recs={slot_recs}, code {n})")
-        if n != -101:  # not an overflow: don't retry
-            break
-        cap *= 2
-    raise RuntimeError(f"bulk gang merge failed (code {n})")
 
 
 # Per-block progress callback plumbing (the upstream writer thread's
