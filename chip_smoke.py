@@ -41,6 +41,7 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+SEED = 1234  # the synthetic corpus
 
 
 def say(*parts) -> None:
@@ -99,9 +100,9 @@ def compile_report(mesh, stream: bytes) -> None:
 def check_programs(data: bytes) -> None:
     """decode_batch_xla and find_candidates as compiled for the card, on
     one block and on one window of 4, against the native core."""
+    from tests import device_checks as C
     from turbosqueeze_tpu.format import BLOCK_SZ, iter_container
     from turbosqueeze_tpu.runtime import native
-    from turbosqueeze_tpu.utils import device_checks as C
 
     blocks = [data[k * BLOCK_SZ:(k + 1) * BLOCK_SZ] for k in range(4)]
     payloads = [(p, e) for _, p, e in
@@ -113,20 +114,20 @@ def check_programs(data: bytes) -> None:
         say(f"find_candidates B={B}: exact")
 
 
-def one_card(args) -> None:
+def one_card(mib: int) -> None:
     """Every public device entry point on one card, byte-checked."""
     import jax
 
+    from tests import device_checks as C
     from turbosqueeze_tpu.parallel import mesh as mesh_mod
     from turbosqueeze_tpu.runtime import native
-    from turbosqueeze_tpu.utils import device_checks as C
     from turbosqueeze_tpu.utils.corpus import real_files, synthetic_text
 
     work = HERE / ".benchdata" / "smoke"
     work.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    data = synthetic_text(args.mib << 20, seed=args.seed)
-    say(f"corpus: synthetic_text {len(data)} B (seed {args.seed}) "
+    data = synthetic_text(mib << 20, seed=SEED)
+    say(f"corpus: synthetic_text {len(data)} B (seed {SEED}) "
         f"in {time.perf_counter() - t0:.1f} s")
     compile_report(mesh_mod.block_mesh(),
                    native.compress(data, True, level=0))
@@ -169,13 +170,13 @@ def one_card(args) -> None:
             f"of {stats.get('bytes_limit')} B")
 
 
-def four_cards(args) -> None:
+def four_cards(mib: int) -> None:
     """Compress and decode over a 4-device mesh, against the native core,
     and the blocks each card held."""
     import jax
 
+    from tests import device_checks as C
     from turbosqueeze_tpu.runtime import native
-    from turbosqueeze_tpu.utils import device_checks as C
     from turbosqueeze_tpu.utils.corpus import synthetic_text
 
     devices = jax.devices()
@@ -183,7 +184,7 @@ def four_cards(args) -> None:
         raise SystemExit(f"--cards 4 needs 4 GPUs, JAX sees {len(devices)}")
     work = HERE / ".benchdata" / "smoke"
     work.mkdir(parents=True, exist_ok=True)
-    data = synthetic_text(args.mib << 20, seed=args.seed)
+    data = synthetic_text(mib << 20, seed=SEED)
     n_blocks = -(-len(data) // (1 << 22))
     if n_blocks < 16:
         raise SystemExit(f"--cards 4 needs >= 16 blocks, --mib gives "
@@ -214,7 +215,6 @@ def main() -> int:
                     help="synthetic corpus size in MiB (default 256)")
     ap.add_argument("--cards", type=int, default=1, choices=(1, 4),
                     help="4: run only the four-card path")
-    ap.add_argument("--seed", type=int, default=1234)
     args = ap.parse_args()
 
     import jax
@@ -246,7 +246,7 @@ def main() -> int:
         f"({dev.platform}); compile cache {cache}")
 
     t0 = time.perf_counter()
-    (four_cards if args.cards == 4 else one_card)(args)
+    (four_cards if args.cards == 4 else one_card)(args.mib)
     say(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": dev.platform, "kind": dev.device_kind,

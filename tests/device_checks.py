@@ -17,13 +17,13 @@ from pathlib import Path
 import jax
 import numpy as np
 
-from .. import cli
-from ..format import BLOCK_SZ
-from ..kernels import decode_xla as DXL
-from ..kernels import encode_xla
-from ..parallel import mesh as mesh_mod
-from ..parallel import pipeline
-from ..runtime import api, native
+from turbosqueeze_tpu import cli
+from turbosqueeze_tpu.format import BLOCK_SZ
+from turbosqueeze_tpu.kernels import decode_xla as DXL
+from turbosqueeze_tpu.kernels import encode_xla
+from turbosqueeze_tpu.parallel import mesh as mesh_mod
+from turbosqueeze_tpu.parallel import pipeline
+from turbosqueeze_tpu.runtime import api, native
 
 
 class CheckFailed(AssertionError):

@@ -40,6 +40,28 @@ def test_device_decode_edge_case(native, case, ext):
         assert decode_block_device(payload, e) == data, f"level {level}"
 
 
+@pytest.mark.parametrize("size,plane", [(4096, 4096), (4097, 8192),
+                                        (65536, 65536)])
+def test_device_decode_output_plane(native, monkeypatch, size, plane):
+    """A block whose size is a power of two decodes into a plane of
+    exactly that size; one byte more takes the next power of two."""
+    from turbosqueeze_tpu.kernels import decode_xla as DXL
+    from turbosqueeze_tpu.utils.corpus import synthetic_text
+
+    seen = []
+    real = DXL.decode_batch_xla
+
+    def spy(*args, n_out):
+        seen.append(n_out)
+        return real(*args, n_out=n_out)
+
+    monkeypatch.setattr(DXL, "decode_batch_xla", spy)
+    data = synthetic_text(size, seed=size)
+    [(_, payload, e)] = iter_container(native.compress(data, True))
+    assert decode_block_device(payload, e) == data
+    assert seen == [plane]
+
+
 @pytest.mark.parametrize("ext", [False, True])
 def test_device_decode_dictionary_identity(native, ext):
     d, blk = DICT_CASE[0](), DICT_CASE[1]()

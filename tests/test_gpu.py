@@ -1,5 +1,5 @@
 """The device path on an NVIDIA GPU, through the same checks chip_smoke.py
-runs at full size (turbosqueeze_tpu/utils/device_checks.py), on a small
+runs at full size (tests/device_checks.py), on a small
 3-block corpus.
 
 Marked ``gpu``: without a card they skip. On a GPU machine run
@@ -8,9 +8,9 @@ Marked ``gpu``: without a card they skip. On a GPU machine run
 
 import pytest
 
+from tests import device_checks as C
 from turbosqueeze_tpu.format import BLOCK_SZ, iter_container
 from turbosqueeze_tpu.runtime import native
-from turbosqueeze_tpu.utils import device_checks as C
 from turbosqueeze_tpu.utils.corpus import synthetic_text
 
 pytestmark = pytest.mark.gpu

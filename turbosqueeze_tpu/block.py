@@ -70,7 +70,7 @@ def decode_block_device(payload: bytes, ext: bool, *,
     """
     pay2, dst, src, ln, lit, size, base = tokenize_with_dict(
         payload, ext, dictionary)
-    n_out = max(4096, 1 << (base + size).bit_length())
+    n_out = max(4096, 1 << (base + size - 1).bit_length())
     planes = DXL.pack_token_batch([(dst, src, ln, lit)], n_out)
     out = DXL.decode_batch_xla(*planes, DXL.pack_payload_batch([pay2]),
                                n_out=n_out)
